@@ -1,6 +1,6 @@
-"""rslo_tpu — a TPU-native (JAX/XLA/Pallas) self-supervised LiDAR odometry
-and SLAM framework with the capabilities of the RSLO reference, built
-from scratch for TPU hardware.
+"""rslo_tpu — a JAX (XLA + Pallas) self-supervised LiDAR odometry and
+SLAM framework with the capabilities of the RSLO reference, built from
+scratch; it runs on NVIDIA GPUs and on the CPU.
 
 Subpackages:
   geometry  — quaternion/pose algebra, tq maps, Kabsch (jit-safe JAX)

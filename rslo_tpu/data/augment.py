@@ -69,7 +69,7 @@ def rotate_odometry(odom: np.ndarray, Rz: np.ndarray) -> np.ndarray:
 
 def random_yaw(sample: dict, rng: np.random.Generator,
                max_rad: float) -> dict:
-    """Global-yaw augmentation (TPU-first extension; the reference only
+    """Global-yaw augmentation (an extension; the reference only
     y-flips, /root/reference/rslo/data/preprocess.py:335-386).  Rotate
     every frame's points/normals by a single random R_z(theta) and
     conjugate all pair odometries + window poses, decorrelating the

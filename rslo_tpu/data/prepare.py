@@ -1,6 +1,6 @@
 """Device-side example preparation: padded raw point clouds -> voxelized
 model inputs.  Runs inside the same jit as the train/eval step — the
-point->voxel scatter is TPU work, not host preprocessing (unlike the
+point->voxel scatter is device work, not host preprocessing (unlike the
 reference, which voxelizes in C++ dataloader workers,
 /root/reference/rslo/data/preprocess.py:469-512)."""
 from __future__ import annotations

@@ -3,10 +3,8 @@
 The deployment-shaped inference loop: each incoming scan is voxelized
 and encoded ONCE; its BEV features pair with the cached previous
 frame's features for the motion prediction.  One jitted step carries
-(points, mask, bev_prev) -> (odometry, bev_new).
-
-~18 ms/frame device compute at KITTI scale on v5e (the two-frame
-stateless path re-encodes both frames at ~48 ms/pair).
+(points, mask, bev_prev) -> (odometry, bev_new), where the two-frame
+stateless path re-encodes both frames.
 """
 from __future__ import annotations
 

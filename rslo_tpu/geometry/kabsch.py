@@ -40,8 +40,9 @@ def weighted_kabsch(src: jax.Array, tgt: jax.Array,
     tgt_c = tgt - tgt_mean
 
     # Cross-covariance H = sum_i w_i src_c[i] tgt_c[i]^T  -> (B, 3, 3).
-    # precision=highest: this is an fp32 island — TPU default matmul
-    # precision (bf16 passes) costs ~1e-3 rotation error.
+    # precision=highest: this is an fp32 island — a reduced-precision
+    # default (bf16 passes, or TF32 on the GPU) costs ~1e-3 rotation
+    # error.
     H = jnp.einsum('bni,bnj->bij', src_c * w, tgt_c,
                    preferred_element_type=jnp.float32,
                    precision=jax.lax.Precision.HIGHEST)

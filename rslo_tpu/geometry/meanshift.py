@@ -1,10 +1,10 @@
 """Batched mean-shift clustering (fixed iterations, jit-safe).
 
-TPU-native counterpart of the reference's GPU mean-shift
+Counterpart of the reference's GPU mean-shift
 (/root/reference/rslo/utils/geometric.py:24-156, unused by its main
 train/eval path): Gaussian-kernel mode seeking over a point set,
 optionally confidence-weighted, with Euclidean or cosine distances.
-All-pairs kernels are MXU-shaped matmuls; the loop is a
+All-pairs kernels are matmuls; the loop is a
 ``lax.fori_loop`` with static shapes.
 """
 from __future__ import annotations

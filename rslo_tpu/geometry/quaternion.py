@@ -1,4 +1,4 @@
-"""Quaternion and rigid-pose algebra for the TPU-native odometry stack.
+"""Quaternion and rigid-pose algebra for the odometry stack.
 
 Conventions (matching the reference framework's semantics, see
 /root/reference/rslo/utils/pose_utils.py:48-200):

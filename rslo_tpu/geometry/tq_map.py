@@ -14,9 +14,9 @@ increasing), matching the reference's (y, x) raster:
 
     ``x(j) = (j - ox) * vx``,  ``y(i) = (oy - i) * vy``,  ``z(k) = (k - oz) * vz``
 
-The reference stores maps channels-first; we keep channels-last for TPU
-friendliness (the lane dimension holds channels) and transpose only at
-I/O boundaries if ever needed.
+The reference stores maps channels-first; we keep channels-last (the
+layout XLA's convolutions prefer) and transpose only at I/O boundaries
+if ever needed.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """Self-supervised chamfer/ICP consistency loss with 3D inherent error
 (covariance) modeling — the core of the self-supervision objective.
 
-TPU-native re-design of the reference's
+Re-design of the reference's
 ``Aleat5_1ChamferL2NormalWeightedALLSVDLoss``
 (/root/reference/rslo/core/losses.py:301-507): one-direction NN
 association, normal-cosine weighting, percentile outlier gating,

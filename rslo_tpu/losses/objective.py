@@ -212,7 +212,7 @@ def compute_objective(preds: Dict[str, Any], example: Dict[str, Any],
             pyramid_loss = pyramid_loss + w_i * (t_l + r_l)
 
     # Diagnostic-only odometry error vs the (never-trained-on in
-    # self-supervised mode) GT motions — VERDICT r1 weak #4: the total
+    # self-supervised mode) GT motions: the total
     # loss can fall on regularizers alone, so convergence must be
     # judged against pose error, not loss.
     if "odometry" in example:

@@ -7,7 +7,7 @@ blocks via config (off by default, matching the deployed configs).
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import linen as nn
+from .. import nn
 
 
 class SELayer(nn.Module):

@@ -1,5 +1,5 @@
 """BEV odometry encoder/decoder ("Geometric Unit Transformation
-Estimation" stage) — TPU-native Flax implementation.
+Estimation" stage).
 
 Re-designs the reference's mask-conv ResNet enc/dec + dense tq-map +
 confidence voting head (/root/reference/rslo/models/odom_pred_base.py and
@@ -9,7 +9,7 @@ odom_pred.py) as channels-last NHWC modules:
     validity mask by max-pooling (MaskConv semantics,
     rslo/layers/MaskConv.py:20-73), residual adds average the masks
     (custom_resnet_spc.py:41-47);
-  * BatchNorm is optionally cross-replica (axis_name="data") — the TPU
+  * BatchNorm is optionally cross-replica (axis_name="data") — the
     analog of apex SyncBN selected by ``bn_type: sync_bn``;
   * the decoder emits a 7-channel local tq map plus translation/rotation
     confidence fields (masked spatial softmax or elu+1), deep-supervision
@@ -23,7 +23,7 @@ from typing import Sequence
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from .. import nn
 
 from ..config.schema import OdomCfg
 from ..utils.mesh_axis import axis_present

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from .. import nn
 
 
 def elu_plus(x, eps: float = 1e-12):

@@ -1,6 +1,6 @@
 """Sparse 3D middle feature extractor + per-voxel covariance decoder.
 
-TPU-native re-design of the reference's SpMiddleFHDWithCov2_3
+Re-design of the reference's SpMiddleFHDWithCov2_3
 (/root/reference/rslo/models/middle.py:36-245): the same channel plan
 (16-16 @ full res → 32-32 @ 1/2 → 64s @ 1/4, 1/8 → z-collapse → dense
 BEV at 1/8 with C*D=128 channels) plus an inverse-conv decoder from the
@@ -14,8 +14,10 @@ module order/names, so checkpoints and equivalence tests carry over):
   * ``engine="rulebook"`` — sorted-level/rulebook gather-matmul
     (:mod:`rslo_tpu.ops.sparse_conv`); architecture-exact oracle.
   * ``engine="tiles"`` — tiled dense blocks + batched ``lax.conv``
-    (:mod:`rslo_tpu.ops.tiled_conv`); the TPU fast path (whole-tile
-    DMA instead of 64 B row gathers, no sorts/rulebooks).
+    (:mod:`rslo_tpu.ops.tiled_conv`); whole-tile reads instead of
+    64 B row gathers, no sorts/rulebooks.
+  * ``engine="band"`` — rulebook geometry with banded one-hot gathers
+    (:mod:`rslo_tpu.ops.band_conv`).
 
 Geometry is built once per frame and shared by all layers at the same
 resolution — the analog of spconv's ``indice_key``.
@@ -26,7 +28,7 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from .. import nn
 
 from ..config.schema import MiddleCfg
 from ..utils.mesh_axis import axis_present
@@ -130,14 +132,13 @@ def build_band_geometry(coords: jax.Array, mask: jax.Array, sparse_shape,
     gather plans (ops/band_conv.py) — same FrameGeometry shape, so the
     plan/provider machinery is shared with the rulebook engine.
 
-    Per-level engine dispatch: the one-hot MXU formulation is overhead-
-    dominated at narrow channels (measured on v5e: 3.43 ms band vs
-    1.41 ms rulebook gather per L0 subm conv at C=16, but band wins at
-    C>=64 — BENCH_NOTES r2).  When ``channels`` (the middle net's
-    (c0, c1, c2, c3) plan) is given, rulebooks whose widest conv runs
-    below ``min_channels`` are left as raw ConvIndex so SpConv routes
-    them through the XLA row-gather path; the wide levels keep the
-    fused band kernel.  min_channels=0 wraps everything (r2 behavior).
+    Per-level engine dispatch: the one-hot formulation does W/B times
+    the work of a row gather, which pays least at narrow channels.
+    When ``channels`` (the middle net's (c0, c1, c2, c3) plan) is
+    given, rulebooks whose widest conv runs below ``min_channels`` are
+    left as raw ConvIndex so SpConv routes them through the row-gather
+    path; the wide levels get band plans.  min_channels=0 wraps
+    everything.
     """
     geo = build_geometry(coords, mask, sparse_shape, capacities,
                          lookup=lookup)
@@ -152,14 +153,12 @@ def build_band_geometry(coords: jax.Array, mask: jax.Array, sparse_shape,
     down_w = tuple(max(ch[i], ch[min(i + 1, 3)]) for i in range(4))
     inv_w = (max(ch[2], ch[1]), max(ch[1], ch[0]))
 
-    def wrap(rb, v_in, window, width, **kw):
+    def wrap(rb, v_in, window, width):
         if width < min_channels:
             return rb  # narrow level: keep the XLA row-gather path
-        return bc.build_band_index(rb, v_in, block=block, window=window,
-                                   **kw)
+        return bc.build_band_index(rb, v_in, block=block, window=window)
 
-    sub = tuple(wrap(rb, geo.levels[i].capacity, sw, sub_w[i],
-                     self_transpose=True)
+    sub = tuple(wrap(rb, geo.levels[i].capacity, sw, sub_w[i])
                 for i, rb in enumerate(geo.sub_rb))
     down = tuple(wrap(rb, geo.levels[i].capacity, dw, down_w[i])
                  for i, rb in enumerate(geo.down_rb))

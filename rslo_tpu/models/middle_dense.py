@@ -1,8 +1,8 @@
-"""Dense masked 3D-conv middle extractor — the TPU fast path.
+"""Dense masked 3D-conv middle extractor.
 
 Functionally equivalent to :class:`SparseMiddleCov` (same channel plan as
 the reference SpMiddleFHDWithCov2_3, /root/reference/rslo/models/middle.py)
-but computed on the dense voxel grid with XLA Conv3D on the MXU instead
+but computed on the dense voxel grid with XLA Conv3D instead
 of gather/scatter sparse kernels:
 
   * active-voxel features are scattered into an NDHWC grid once;
@@ -15,10 +15,9 @@ of gather/scatter sparse kernels:
   * per-voxel covariance params come from one final gather at the input
     voxel coordinates.
 
-Regular memory access, MXU-tiled convs, no rulebooks: this trades FLOPs
-on empty space (0.1% density) for eliminating the row-gather bottleneck,
-which profiles ~10x faster on v5e for the KITTI grid.  bf16 activations,
-fp32 accumulation.
+Regular memory access, dense convs, no rulebooks: this trades FLOPs on
+empty space (0.1% density) for eliminating the row gathers.  bf16
+activations, fp32 accumulation.
 """
 from __future__ import annotations
 
@@ -26,7 +25,7 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from .. import nn
 
 from ..config.schema import MiddleCfg
 from ..utils.mesh_axis import axis_present
@@ -37,7 +36,7 @@ HI = jax.lax.Precision.HIGHEST
 def conv3d(x, w, stride, padding):
     """x: (1, D, H, W, C); w: (kd, kh, kw, Cin, Cout).
 
-    No explicit preferred_element_type: TPU bf16 convs accumulate fp32
+    No explicit preferred_element_type: bf16 convs accumulate in fp32
     internally, and mixing an f32 output with bf16 operands breaks the
     autodiff transpose (dtype-mismatched backward convs)."""
     return jax.lax.conv_general_dilated(

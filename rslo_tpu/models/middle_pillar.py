@@ -1,12 +1,9 @@
-"""Pillar-style dense 2D middle extractor + per-voxel covariance head —
-the TPU flagship fast path.
+"""Pillar-style dense 2D middle extractor + per-voxel covariance head.
 
-TPU-first re-design of the reference's sparse 3D middle net
-(/root/reference/rslo/models/middle.py:36-245).  Rationale: on TPU the
-MXU eats large regular 2D convolutions, while gather/scatter sparse 3D
-convolution is latency-bound (measured ~30 ms per gather layer and
-~880 ms of rulebook builds per frame on v5e for the KITTI grid).  This
-module keeps the middle net's exact output CONTRACT — a (H/8, W/8, 128)
+A re-design of the reference's sparse 3D middle net
+(/root/reference/rslo/models/middle.py:36-245) as large regular 2D
+convolutions instead of gather/scatter sparse 3D convolution with
+per-frame rulebook builds.  This module keeps the middle net's exact output CONTRACT — a (H/8, W/8, 128)
 BEV feature map plus 7 covariance params per active voxel — but computes
 it dense-2D:
 
@@ -29,7 +26,7 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from .. import nn
 
 from ..config.schema import MiddleCfg
 

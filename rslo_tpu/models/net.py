@@ -1,7 +1,7 @@
 """Top-level odometry network: VFE -> sparse middle (+cov) -> BEV pair
 encoder/decoder -> ego-motion vote.
 
-TPU-native counterpart of the reference's UnVoxelOdomNetICP3
+Counterpart of the reference's UnVoxelOdomNetICP3
 (/root/reference/rslo/models/voxel_odom_net.py:47-580): processes a
 temporal window of ``seq_length`` voxelized frames with shared weights,
 forms all C(L, 2) cyclic frame pairs, and returns the prediction pytree
@@ -14,7 +14,7 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import jax.numpy as jnp
-from flax import linen as nn
+from .. import nn
 
 from ..config.schema import PipelineCfg, grid_size
 from .bev_net import BEVOdomNet, cycle_pairs
@@ -104,8 +104,7 @@ class OdomNet(nn.Module):
     # ---- streaming API ---------------------------------------------------
     # A production odometry stream encodes each frame ONCE and pairs it
     # with the cached previous frame's BEV features (the reference
-    # always re-encodes both frames; this is the TPU-deployment path:
-    # ~18 ms/frame device compute at KITTI scale).
+    # always re-encodes both frames).
 
     def _middle_geometry(self, coords, vmask):
         """Build the engine-appropriate per-frame sparse geometry."""

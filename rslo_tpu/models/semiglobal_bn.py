@@ -13,13 +13,13 @@ probe:
     mom'  <- 1 - (1-mom)/(1-mom + sqrt(g2) + 1e-9)
 
 This stabilizes batch_size-1 training (the reference's motivation for
-the variant).  TPU-native: explicit pmean over the mesh "data" axis.
+the variant).  Explicit pmean over the mesh "data" axis.
 """
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from .. import nn
 
 from ..utils.mesh_axis import axis_present
 

@@ -9,7 +9,7 @@ affine parameters.  NHWC layout.
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import linen as nn
+from .. import nn
 
 
 class SpatialGroupedInstanceNorm(nn.Module):

@@ -1,6 +1,6 @@
 """Voxel feature encoders ("Geometric Unit Feature Encoding", stage 1).
 
-TPU-native equivalents of the reference VFE registry
+Equivalents of the reference VFE registry
 (/root/reference/rslo/models/voxel_encoder.py).  The deployed encoder,
 SimpleVoxel_XYZINormalC (voxel_encoder.py:258-280), is parameter-free:
 per-voxel mean of the (x, y, z, intensity, nx, ny, nz) points with the

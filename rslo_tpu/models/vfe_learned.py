@@ -13,7 +13,7 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from .. import nn
 
 
 def _point_mask(voxels: jax.Array, num_points: jax.Array) -> jax.Array:

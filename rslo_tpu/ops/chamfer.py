@@ -1,20 +1,25 @@
 """One-direction nearest-neighbor search (chamfer association).
 
-TPU-native replacement for the reference's CUDA brute-force kernel
+Counterpart of the reference's CUDA brute-force kernel
 (/root/reference/thirdparty/chamfer_distance/chamfer_distance.cu): for each
 source point, the squared distance to — and index of — its nearest target
 point.  Two implementations with one API:
 
   * ``nn_search`` — XLA: lax.scan over target tiles, distances via one
-    (N, 3) x (3, T) matmul per tile, running min/argmin.  Works on CPU
-    and TPU; this is the default and the autodiff path.
-  * ``nn_search_pallas`` — Pallas TPU kernel, tiled over both point sets
-    with the argmin accumulated in VMEM across the target-tile grid axis.
+    (N, 3) x (3, T) matmul per tile, running min/argmin.  Runs on every
+    backend; it is the CPU path and the plain reference.
+  * ``nn_search_pallas`` — Pallas kernel on the Triton route for the GPU.
+    Each program owns a block of source rows and loops over target tiles
+    with exact coordinate differences, keeping the running min/argmin in
+    registers.
+
+:func:`nn_search_auto` picks by platform: the kernel on ``"gpu"``, the
+XLA scan elsewhere.
 
 The argmin is piecewise constant, so no gradient flows through the search
 itself (the caller recomputes differentiable quantities from the returned
 indices — same structure as the reference loss).  Returned distances are
-wrapped in stop_gradient.
+wrapped in stop_gradient.  Ties go to the lowest target index.
 """
 from __future__ import annotations
 
@@ -59,11 +64,10 @@ def nn_search(src: jax.Array, src_mask: jax.Array, tgt: jax.Array,
     def body(carry, inp):
         best_d, best_i = carry
         t, m, base = inp
-        # (N, T) squared distances via the MXU cross term.  precision
-        # HIGHEST is load-bearing: the TPU default runs bf16 passes,
-        # which at |x|~30 m coordinates injects O(10) m^2 distance
-        # error and corrupts ~10-30% of the associations (measured on
-        # v5e vs the exact-fp32 Pallas kernel / numpy argmin).
+        # (N, T) squared distances via the cross term.  precision
+        # HIGHEST is load-bearing: a reduced-precision product (bf16
+        # passes, or TF32 on the GPU) at |x| ~ 30 m coordinates injects
+        # distance errors of metres^2 and corrupts associations.
         cross = jnp.dot(src, t.T, preferred_element_type=jnp.float32,
                         precision=jax.lax.Precision.HIGHEST)
         d = src_sq[:, None] - 2.0 * cross + jnp.sum(t * t, axis=-1)[None, :]
@@ -84,98 +88,123 @@ def nn_search(src: jax.Array, src_mask: jax.Array, tgt: jax.Array,
     return jnp.maximum(dist, 0.0), idx
 
 
-def nn_search_auto(src, src_mask, tgt, tgt_mask, src_tile: int = 1024,
-                   tgt_tile: int = 512):
-    """Pallas kernel on TPU when shapes tile-align, XLA scan otherwise.
-    Default tiles keep the (src_tile, tgt_tile) f32 distance block at
-    2 MB so the kernel's working set stays well inside VMEM.
+def _platform() -> str:
+    """Platform the current computation is placed on: the device set by
+    ``jax.default_device`` if any, else the default backend."""
+    dev = jax.config.jax_default_device
+    if dev is None:
+        return jax.default_backend()
+    return dev if isinstance(dev, str) else dev.platform
 
-    src_tile must stay a multiple of 1024: it is the block size of the
-    kernel's 1-D outputs, and XLA lays 1-D f32/s32 buffers out as
-    T(1024) — Mosaic rejects sub-1024 blocks with a layout mismatch
-    (measured on v5e; the sweep harness hit it at 512).  tgt_tile is
-    free in multiples of 128 (the tgt operand is 2-D)."""
-    try:
-        on_tpu = jax.devices()[0].platform == "tpu"
-    except Exception:
-        on_tpu = False
-    if (on_tpu and src.shape[0] % src_tile == 0 and
-            tgt.shape[0] % tgt_tile == 0):
-        return nn_search_pallas(src, src_mask, tgt, tgt_mask,
-                                src_tile=src_tile, tgt_tile=tgt_tile)
+
+def nn_search_auto(src, src_mask, tgt, tgt_mask):
+    """:func:`nn_search_pallas` on the GPU, :func:`nn_search` elsewhere."""
+    if _platform() == "gpu":
+        return nn_search_pallas(src, src_mask, tgt, tgt_mask)
     return nn_search(src, src_mask, tgt, tgt_mask)
 
 
+# Block sizes and launch parameters of the GPU kernel (powers of two, as
+# the Triton route requires), from a sweep on an H100 at the loss's
+# shape: three 20480 x 20480 searches under vmap.
+SRC_BLOCK = 32
+TGT_BLOCK = 64
+NUM_WARPS = 1
+NUM_STAGES = 2
+
+
+def _pad_to(x: jax.Array, n: int, value) -> jax.Array:
+    """Pad the last axis of ``x`` to length ``n`` with ``value``."""
+    pad = n - x.shape[-1]
+    if not pad:
+        return x
+    widths = [(0, 0)] * (x.ndim - 1) + [(0, pad)]
+    return jnp.pad(x, widths, constant_values=value)
+
+
+@functools.partial(jax.jit, static_argnames=(
+    "src_block", "tgt_block", "num_warps", "num_stages", "interpret"))
 def nn_search_pallas(src: jax.Array, src_mask: jax.Array, tgt: jax.Array,
-                     tgt_mask: jax.Array, *, src_tile: int = 1024,
-                     tgt_tile: int = 512, interpret: bool = False):
-    """Pallas TPU version of :func:`nn_search` (same contract).
+                     tgt_mask: jax.Array, *, src_block: int = SRC_BLOCK,
+                     tgt_block: int = TGT_BLOCK, num_warps: int = NUM_WARPS,
+                     num_stages: int = NUM_STAGES, interpret: bool = False):
+    """Pallas (Triton route) version of :func:`nn_search`, same contract.
 
-    Grid is (src tiles, tgt tiles); the output block for a src tile is
-    revisited across the tgt axis, carrying the running min/argmin.
-    Shapes must be multiples of the tile sizes (pad upstream).
-
-    Layout/compute choices (pallas_guide): distances are pure VPU
-    broadcast work — src coords come in rows-major ((TN, 1) columns
-    across sublanes), tgt coords TRANSPOSED once outside the kernel to
-    a (4, M) matrix whose rows are (x, y, z, mask-penalty): per
-    coordinate a broadcast-subtract-square-accumulate builds (TN, TT)
-    without any in-kernel transpose or K=3 MXU matmul, and adding the
-    penalty row (0 valid / BIG invalid) reproduces the masked-distance
-    semantics with NO integer mask operands — 1-D s32 *inputs* trip
-    Mosaic's XLA-layout rule (input layout T(1024) vs Mosaic T(512))
-    at sub-1024 tile sizes; Mosaic-owned 1-D outputs are fine.
-    src_mask is only applied outside the kernel.  The per-tile argmin
-    is a lane min-reduce plus a first-match iota min-reduce (no argmin
-    primitive)."""
+    Any N and M: the wrapper pads sources to a multiple of ``src_block``
+    and targets to a multiple of ``tgt_block`` (padded targets carry the
+    BIG penalty, padded sources are cut off).  Targets travel as one
+    (4, Mp) array whose rows are x, y, z and a mask penalty (0 valid /
+    BIG invalid), so masking is one add and needs no integer operand.
+    One program per source block; an in-kernel loop over target tiles
+    computes the (src_block, tgt_block) exact-difference distances and
+    folds them elementwise into a running min per tile column; one
+    reduction at the end takes the row minimum and its first index.
+    """
     from jax.experimental import pallas as pl
+    from jax.experimental.pallas import triton as plgpu
 
     N, M = src.shape[0], tgt.shape[0]
-    assert N % src_tile == 0 and M % tgt_tile == 0, (N, M)
+    Np = -(-N // src_block) * src_block
+    Mp = -(-M // tgt_block) * tgt_block
     src = jax.lax.stop_gradient(src.astype(jnp.float32))
-    tgtT = jnp.concatenate(
-        [jax.lax.stop_gradient(tgt.astype(jnp.float32)).T,
-         jnp.where(tgt_mask, 0.0, BIG).astype(jnp.float32)[None, :]],
-        axis=0)                                             # (4, M)
+    tgt = jax.lax.stop_gradient(tgt.astype(jnp.float32))
+    srcT = _pad_to(jnp.concatenate(
+        [src.T, jnp.zeros((1, N), jnp.float32)], axis=0), Np, 0.0)
+    tgtT = _pad_to(jnp.concatenate(
+        [tgt.T, jnp.where(tgt_mask, 0.0, BIG).astype(jnp.float32)[None]],
+        axis=0), Mp, BIG)                                   # (4, Mp)
+    n_tiles = Mp // tgt_block
 
-    def kernel(s_ref, tT_ref, d_ref, i_ref):
-        j = pl.program_id(1)
+    def kernel(s_ref, t_ref, d_ref, i_ref):
+        sx = s_ref[0, :][:, None]
+        sy = s_ref[1, :][:, None]
+        sz = s_ref[2, :][:, None]
 
-        @pl.when(j == 0)
-        def _init():
-            d_ref[:] = jnp.full_like(d_ref, BIG)
-            i_ref[:] = jnp.zeros_like(i_ref)
+        # running best per (source row, tile column): the loop body is
+        # elementwise; the one cross-column reduction comes after it
+        def body(j, carry):
+            best_d, best_j = carry
+            cols = pl.ds(pl.multiple_of(j * tgt_block, tgt_block),
+                         tgt_block)
+            dx = sx - t_ref[0, cols][None, :]
+            dy = sy - t_ref[1, cols][None, :]
+            dz = sz - t_ref[2, cols][None, :]
+            d = dx * dx + dy * dy + dz * dz + t_ref[3, cols][None, :]
+            upd = d < best_d          # strict: the earliest tile wins
+            return jnp.where(upd, d, best_d), jnp.where(upd, j, best_j)
 
-        dx = s_ref[:, 0][:, None] - tT_ref[0, :][None, :]   # (TN, TT)
-        dy = s_ref[:, 1][:, None] - tT_ref[1, :][None, :]
-        dz = s_ref[:, 2][:, None] - tT_ref[2, :][None, :]
-        d = dx * dx + dy * dy + dz * dz + tT_ref[3, :][None, :]
-        td = jnp.min(d, axis=-1)                            # (TN,)
-        jidx = jax.lax.broadcasted_iota(jnp.int32, d.shape, 1)
-        ti = jnp.min(jnp.where(d <= td[:, None], jidx, M), axis=-1)
-        upd = td < d_ref[:]
-        base = j * tgt_tile
-        i_ref[:] = jnp.where(upd, base + ti, i_ref[:])
-        d_ref[:] = jnp.where(upd, td, d_ref[:])
+        shape = (src_block, tgt_block)
+        best_d, best_j = jax.lax.fori_loop(
+            0, n_tiles, body, (jnp.full(shape, BIG, jnp.float32),
+                               jnp.zeros(shape, jnp.int32)))
+        col = jax.lax.broadcasted_iota(jnp.int32, shape, 1)
+        td = jnp.min(best_d, axis=1)
+        # first index among the ties of the row minimum
+        gidx = jnp.where(best_d == td[:, None], best_j * tgt_block + col,
+                         n_tiles * tgt_block)
+        d_ref[:] = td
+        i_ref[:] = jnp.where(td < BIG, jnp.min(gidx, axis=1), 0)
 
-    grid = (N // src_tile, M // tgt_tile)
     dist, idx = pl.pallas_call(
         kernel,
-        grid=grid,
+        grid=(Np // src_block,),
         in_specs=[
-            pl.BlockSpec((src_tile, 3), lambda i, j: (i, 0)),
-            pl.BlockSpec((4, tgt_tile), lambda i, j: (0, j)),
+            pl.BlockSpec((4, src_block), lambda i: (0, i)),
+            pl.BlockSpec((4, Mp), lambda i: (0, 0)),
         ],
         out_specs=[
-            pl.BlockSpec((src_tile,), lambda i, j: (i,)),
-            pl.BlockSpec((src_tile,), lambda i, j: (i,)),
+            pl.BlockSpec((src_block,), lambda i: (i,)),
+            pl.BlockSpec((src_block,), lambda i: (i,)),
         ],
         out_shape=[
-            jax.ShapeDtypeStruct((N,), jnp.float32),
-            jax.ShapeDtypeStruct((N,), jnp.int32),
+            jax.ShapeDtypeStruct((Np,), jnp.float32),
+            jax.ShapeDtypeStruct((Np,), jnp.int32),
         ],
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=num_stages),
         interpret=interpret,
-    )(src, tgtT)
-    dist = jnp.where(src_mask, dist, BIG)
-    idx = jnp.where(src_mask, idx, 0)
+        name="chamfer_nn",
+    )(srcT, tgtT)
+    dist = jnp.where(src_mask, dist[:N], BIG)
+    idx = jnp.where(src_mask, idx[:N], 0)
     return jnp.maximum(dist, 0.0), idx

@@ -1,9 +1,9 @@
-"""Sparse 3D convolution engine, TPU-native.
+"""Sparse 3D convolution engine on XLA.
 
 Replaces the reference's external C++/CUDA `spconv_plus` stack
 (SubMConv3d / SparseConv3d / SparseInverseConv3d / SparseConvTensor /
 .dense(), used at /root/reference/rslo/models/middle.py:80-245) with a
-from-scratch XLA formulation built for static shapes and the MXU:
+from-scratch XLA formulation built for static shapes:
 
   * A *level* is a fixed-capacity set of active voxels with coordinates
     sorted by linearized (z, y, x) id (padding at the end with a sentinel
@@ -14,8 +14,8 @@ from-scratch XLA formulation built for static shapes and the MXU:
     are built once per frame per resolution change and shared by every
     layer with the same geometry — the analog of spconv's `indice_key`.
   * The convolution itself is gather -> im2col -> ONE (V, K*Cin) x
-    (K*Cin, Cout) matmul, which maps straight onto the MXU with a large
-    contraction dimension instead of 27 thin matmuls.
+    (K*Cin, Cout) matmul with a large contraction dimension instead of
+    27 thin matmuls.
 
 Submanifold (stride 1, out sites == in sites), strided downsample
 (out sites derived from in sites), and inverse/transposed conv (out sites
@@ -29,10 +29,10 @@ from typing import NamedTuple, Sequence
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..utils import pytree
 
 
-@struct.dataclass
+@pytree.dataclass
 class SparseLevel:
     """A fixed-capacity set of active voxels at one resolution.
 
@@ -43,13 +43,12 @@ class SparseLevel:
     shape:  static (nz, ny, nx) of this level's dense grid.
     slot_map: optional (nz*ny*nx + 1,) int32 dense id -> slot+1 table
             (0 = inactive).  When present, neighbor lookup is one gather
-            instead of a 27-way binary search — ~5x faster on TPU where
-            searchsorted costs ~5 ms per 40k-query tap.
+            instead of a 27-way binary search.
     """
     coords: jax.Array
     ids: jax.Array
     mask: jax.Array
-    shape: tuple = struct.field(pytree_node=False)
+    shape: tuple = pytree.static_field()
     slot_map: jax.Array | None = None
 
     @property
@@ -94,8 +93,8 @@ def level_from_coords(coords: jax.Array, mask: jax.Array,
 
 def with_slot_map(level: SparseLevel) -> SparseLevel:
     """Attach the dense id -> slot+1 lookup table (one scatter; makes
-    every subsequent rulebook lookup a single gather, ~20% faster than
-    searchsorted at L0 scale on v5e)."""
+    every subsequent rulebook lookup a single gather instead of a
+    binary search)."""
     sm = jnp.zeros((level.sentinel + 1,), jnp.int32).at[
         jnp.where(level.mask, level.ids, level.sentinel)].set(
         jnp.arange(level.capacity, dtype=jnp.int32) + 1)
@@ -114,8 +113,8 @@ def _kernel_offsets(kernel: Sequence[int]) -> np.ndarray:
 def _lookup(level: SparseLevel, query_ids: jax.Array,
             query_valid: jax.Array) -> tuple[jax.Array, jax.Array]:
     """Find query ids in a sorted level.  Query arrays may be any shape
-    (all taps batched into one call — one big lookup is ~10x cheaper than
-    27 small ones on TPU).  Returns (idx, found) of the query shape.
+    (all taps batched into one call — one big lookup instead of 27 small
+    ones).  Returns (idx, found) of the query shape.
 
     Uses the level's dense slot_map when present (single gather);
     otherwise searchsorted with method='sort' (the default 'scan' method
@@ -141,13 +140,12 @@ def _lookup_ranked(level: SparseLevel, query_ids: jax.Array,
                    stray_capacity: int = 8192,
                    _return_rank: bool = False) -> tuple[jax.Array,
                                                         jax.Array]:
-    """Windowed-rank lookup: same contract as :func:`_lookup`, built for
-    the TPU's gather economics.
+    """Windowed-rank lookup: same contract as :func:`_lookup`, without
+    random gathers into a large table.
 
     The slot-map path costs one random gather per (row, tap) into a
-    44M-entry (177 MB) HBM table — measured 16.4 ms for the 1.1M L0
-    submanifold queries (geometry profile, BENCH_NOTES r3g), ~60% of the
-    whole sparse plan build.  This formulation exploits two invariants:
+    44M-entry (177 MB) table: 1.1M random reads for the L0 submanifold
+    queries.  This formulation exploits two invariants:
 
       * ``level.ids`` is sorted and unique, so a voxel's row index IS the
         rank of its id:  idx(q) = #{ids < q},  present(q) = q ∈ ids.
@@ -175,8 +173,8 @@ def _lookup_ranked(level: SparseLevel, query_ids: jax.Array,
     # Block over OUT ROWS (each block's K taps share one window): out
     # rows are sorted, so a 256-row block's neighbor ids all fall in a
     # contiguous ~2-z-plane slice of ``ids``.  Blocking over the
-    # flattened (row, tap) stream instead multiplies the window DMAs by
-    # K and loses 10x (measured: 161 vs 16 ms for the L0 subm rulebook).
+    # flattened (row, tap) stream instead multiplies the window reads
+    # by K.
     K = query_ids.shape[-1] if query_ids.ndim > 1 else 1
     rows = query_ids.shape[0]
     nB = -(-rows // block)
@@ -326,8 +324,8 @@ def _slot_segments(level: SparseLevel, q_c: jax.Array) -> jax.Array:
     [q_c - 1, q_c + 2) for each (row, plane) center query.
 
     One contiguous 4-entry slice per plane instead of 3 random
-    singleton gathers — same slot-map semantics (exact), 3x fewer HBM
-    transactions.  Returns (V, P, 3) slot+1 values for the (m, c, p)
+    singleton gathers — same slot-map semantics (exact), 3x fewer
+    memory transactions.  Returns (V, P, 3) slot+1 values for the (m, c, p)
     x-offset taps (entries whose id falls outside the segment due to
     edge clipping are garbage — callers mask them with the x-bound /
     in-bounds validity they already compute)."""
@@ -638,7 +636,7 @@ def sparse_conv_apply(features: jax.Array, rulebook: ConvIndex,
     """Apply a sparse conv given its rulebook.
 
     features: (V_in, Cin); weights: (K, Cin, Cout); returns (V_out, Cout).
-    Gather -> (V_out, K*Cin) im2col -> single matmul on the MXU.
+    Gather -> (V_out, K*Cin) im2col -> single matmul.
     """
     V_out, K = rulebook.idx.shape
     Cin = features.shape[1]
@@ -662,8 +660,8 @@ def sparse_conv_apply_planes(features: jax.Array, rulebook: ConvIndex,
                              compute_dtype=jnp.float32) -> jax.Array:
     """:func:`sparse_conv_apply` for kx==3 rulebooks via plane-grouped
     SLICE gathers: one contiguous (4, Cin) row-window per (out row,
-    (dz, dy) plane) instead of 3 singleton row gathers — 3x fewer HBM
-    transactions on the gather-latency-bound TPU path.
+    (dz, dy) plane) instead of 3 singleton row gathers — 3x fewer
+    memory transactions.
 
     Exactness: levels are sorted by linearized id with x fastest, so a
     plane's valid x-taps (consecutive ids in one (z, y) scanline, or

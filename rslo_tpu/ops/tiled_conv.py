@@ -1,9 +1,9 @@
-"""Tiled dense engine for sparse 3D convolution — the TPU fast path.
+"""Tiled dense engine for sparse 3D convolution.
 
 The rulebook engine (:mod:`rslo_tpu.ops.sparse_conv`) is architecture-
 exact but bound by per-layer row gathers ((V, 27) rows of 64 B) and
 per-frame rulebook builds (sorts + lookups).  This engine re-designs the
-same math for how a TPU actually moves data:
+same math around contiguous dense blocks:
 
   * Each high-resolution level is a fixed-capacity set of dense tiles
     (default 2x8x8 — LiDAR occupancy is a thin, scattered shell, so
@@ -12,7 +12,7 @@ same math for how a TPU actually moves data:
     data movement is whole-tile / face-slab gathers (KB-sized rows at
     near-peak HBM bandwidth) instead of 64-byte scatter-gather.
   * Convolutions are batched dense ``lax.conv`` over halo-extended
-    blocks — an implicit im2col GEMM on the MXU.  Submanifold semantics
+    blocks — an implicit im2col GEMM.  Submanifold semantics
     (outputs only at active sites, reference SubMConv3d,
     /root/reference/rslo/models/middle.py:119-244) come from masking
     with per-tile occupancy after every layer.
@@ -38,7 +38,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..utils import pytree
 
 DEFAULT_TILE = (2, 8, 8)
 
@@ -47,7 +47,7 @@ def _cdiv(a, b):
     return -(-a // b)
 
 
-@struct.dataclass
+@pytree.dataclass
 class TileLevel:
     """Active-tile structure of one tiled level.
 
@@ -67,9 +67,9 @@ class TileLevel:
     nb_lo: jax.Array
     nb_hi: jax.Array
     occ: jax.Array
-    grid: tuple = struct.field(pytree_node=False)
-    tgrid: tuple = struct.field(pytree_node=False)
-    tile: tuple = struct.field(pytree_node=False)
+    grid: tuple = pytree.static_field()
+    tgrid: tuple = pytree.static_field()
+    tile: tuple = pytree.static_field()
 
     @property
     def capacity(self) -> int:
@@ -84,7 +84,7 @@ class TileLevel:
         return tuple(t // 2 for t in self.tile)
 
 
-@struct.dataclass
+@pytree.dataclass
 class TiledGeometry:
     """Per-frame geometry for the tiled engine (indice_key analog)."""
     l0: TileLevel

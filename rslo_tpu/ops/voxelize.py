@@ -1,6 +1,6 @@
 """Fixed-capacity point-cloud voxelization as a pure-JAX op.
 
-TPU-native replacement for the reference's C++ ``spconv.utils.VoxelGenerator``
+Replacement for the reference's C++ ``spconv.utils.VoxelGenerator``
 (used at /root/reference/rslo/builder/voxel_builder.py:36-95 and
 rslo/data/preprocess.py:469-512): buckets points into voxels of
 ``voxel_size`` over ``point_cloud_range``, keeping at most ``max_points``
@@ -187,8 +187,7 @@ class MeanVoxels(NamedTuple):
 def voxelize_mean(points: jax.Array, point_mask: jax.Array,
                   config: VoxelizerConfig) -> MeanVoxels:
     """Sort-free voxelization: compaction via a two-level prefix sum
-    over the dense occupancy grid instead of a 131k argsort (the argsort
-    is ~half the voxelizer's runtime on TPU).  Produces per-voxel MEANS
+    over the dense occupancy grid instead of a 131k argsort.  Produces per-voxel MEANS
     directly — sufficient for the mean VFEs and the pillar path; use
     :func:`voxelize` when per-voxel point stacks are needed.
 

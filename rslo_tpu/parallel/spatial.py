@@ -4,7 +4,7 @@ A new parallel axis beyond the reference's pure data parallelism
 (reference scaling = DDP only, /root/reference/train_hdf5.py:594-814):
 the BEV grid's width dimension is sharded over a mesh axis and XLA's
 SPMD partitioner inserts the halo exchanges (collective-permutes) that
-every 3x3 conv needs — the TPU-idiomatic alternative to hand-written
+every 3x3 conv needs — the SPMD alternative to hand-written
 halo code.  Use case: cutting single-scan *latency* below one-chip
 inference time; data parallelism only scales throughput.
 

@@ -139,7 +139,7 @@ def cov_sqrt_info(cov_params: np.ndarray, eps: float = 1e-3
     This feeds the network's FULL 3D error model into BA (the
     reference's pitch, rslo/core/losses.py:422-437): anisotropic
     per-point uncertainty whitens the BA residuals instead of being
-    collapsed to a scalar trace (VERDICT r1 weak #5)."""
+    collapsed to a scalar trace."""
     from ..losses.consistency import span_cov
     import jax.numpy as jnp
     sigma = np.asarray(span_cov(jnp.asarray(cov_params, jnp.float32)))

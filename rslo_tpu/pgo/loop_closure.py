@@ -2,13 +2,13 @@
 
 A capability the reference only gestures at (its ``refine`` flag is
 dead — /root/reference/evaluate.py:39,167): close trajectory loops and
-feed them to the pose-graph solver.  TPU-first design:
+feed them to the pose-graph solver.  Design:
 
   * place recognition = a Scan-Context-style polar BEV descriptor
     (ring x sector max-height signature).  Rotation invariance is a
     maximum over circular sector shifts, evaluated as ONE batched
     matmul of the S shifted query signatures against the database —
-    an MXU-shaped (S, R*S) @ (R*S, K) product, not a host loop;
+    an (S, R*S) @ (R*S, K) matmul, not a host loop;
   * a cheap rotation-invariant ring key (per-ring occupancy mean)
     prefilters candidates with an (N, N) distance matrix;
   * each detected loop edge is measured by a fixed-iteration
@@ -76,7 +76,7 @@ def shift_similarity(query: jax.Array, database: jax.Array):
     Returns (scores (K,), shifts (K,)): the best circular sector shift
     of the query against each database entry.  The S shifted copies of
     the query form an (S, R*S) matrix multiplied against (K, R*S)^T —
-    one MXU matmul instead of a shift loop."""
+    one matmul instead of a shift loop."""
     S = query.shape[-1]
     shifted = jax.vmap(lambda s: jnp.roll(query, s, axis=-1))(
         jnp.arange(S))                              # (S, R, S)

@@ -3,15 +3,15 @@
 Promotes the reference's latent PGO machinery
 (/root/reference/rslo/utils/pose_utils.py:500-816 — chain + all-pairs
 Gauss-Newton with Cholesky solves and quaternion exp-map updates) to a
-first-class TPU-native layer: the whole solver is one jitted function
+first-class layer: the whole solver is one jitted function
 with static problem capacities (padded edges with zero information),
 Levenberg damping, and autodiff Jacobians of the manifold residual —
 no hand-derived Jacobian blocks.
 
-Design notes (TPU-first):
+Design notes:
   * a refinement window holds N poses (N <= ~128): the dense 6N x 6N
-    normal system is tiny; one Cholesky on-chip beats any sparse
-    scatter-gather;
+    normal system is tiny; one dense Cholesky on the device beats any
+    sparse scatter-gather;
   * edges are (E, 2) index pairs + (E, 7) measurements + (E, 6, 6)
     information matrices — uncertainty from the network's covariance
     head plugs in directly;

@@ -8,7 +8,7 @@ multi-frame eval windows produce redundant pairwise motions
 Gauss-Newton fuses them into a consistent trajectory.  Edge information
 scales with the network's vote confidence when provided.
 
-TPU-first: every window is the SAME static problem size, so one jitted
+Every window is the SAME static problem size, so one jitted
 solver instance serves the whole trajectory (windows batched with vmap
 when there are many).
 """
@@ -60,7 +60,7 @@ def calibrate_pair_info(pair_edges: np.ndarray, pair_motions: np.ndarray,
                         dup_var: tuple | None = None) -> np.ndarray:
     """Self-calibrated (E, 6, 6) edge information matrices.
 
-    VERDICT r4 weak #3: uniform w*I6 information lets the noisier
+    Uniform w*I6 information lets the noisier
     multi-step edges drag rotation — the refined row's r_rel got WORSE
     than chained.  This estimates per-offset-class (j - i) noise scales
     from the data itself, separately for rotation and translation:

@@ -2,9 +2,9 @@
 
 The analog of the reference's NCCL/SLURM process-group management
 (/root/reference/rslo/utils/distributed_utils.py:74-111,
-train_hdf5.py:332-340), TPU-native: ``jax.distributed.initialize`` wires
-all hosts into one runtime; the data mesh spans every chip; host-local
-batches feed ``jax.make_array_from_process_local_data``.
+train_hdf5.py:332-340): ``jax.distributed.initialize`` wires all hosts
+into one runtime; the data mesh spans every device; host-local batches
+feed ``jax.make_array_from_process_local_data``.
 """
 from __future__ import annotations
 
@@ -21,10 +21,10 @@ def initialize_multihost(coordinator: str | None = None,
     """Initialize the cross-host runtime.  No-ops on single host.
 
     Resolves settings from explicit args, then SLURM env (the reference's
-    dist_init), then JAX defaults (TPU metadata on Cloud TPU pods).
+    dist_init), then JAX's own cluster detection.
     """
-    if jax.process_count() > 1:
-        return  # already initialized
+    if jax.distributed.is_initialized():
+        return
     if coordinator is None and "SLURM_NTASKS" in os.environ:
         n = int(os.environ["SLURM_NTASKS"])
         if n > 1:
@@ -35,15 +35,20 @@ def initialize_multihost(coordinator: str | None = None,
             process_id = int(os.environ["SLURM_PROCID"])
     if coordinator is not None:
         jax.distributed.initialize(coordinator, num_processes, process_id)
-    else:
-        try:
-            jax.distributed.initialize()
-        except Exception:
-            pass  # single-process local run
+        return
+    from jax._src import xla_bridge
+    if xla_bridge.backends_are_initialized():
+        return  # this process already runs JAX on its own: single process
+    try:
+        jax.distributed.initialize()
+    except ValueError as e:
+        # no cluster configured: a single-process local run
+        if "coordinator_address should be defined" not in str(e):
+            raise
 
 
 def global_data_mesh() -> Mesh:
-    """One 'data' axis over all chips on all hosts."""
+    """One 'data' axis over all devices on all hosts."""
     return Mesh(np.array(jax.devices()), ("data",))
 
 

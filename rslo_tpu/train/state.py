@@ -6,10 +6,10 @@ from typing import Any, Dict
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
+from ..utils import pytree
 
 
-@struct.dataclass
+@pytree.dataclass
 class TrainState:
     params: Any
     batch_stats: Any

@@ -1,6 +1,6 @@
 """Jitted data-parallel train/eval steps over a device mesh.
 
-TPU-native replacement for the reference's NCCL DDP loop
+Replacement for the reference's NCCL DDP loop
 (/root/reference/train_hdf5.py:594-814 + rslo/utils/distributed_utils.py):
 one ``shard_map``-decorated step over mesh axis "data" — gradients and
 loss scalars are reduced with ``psum``/``pmean`` inside the step (the

@@ -1,37 +1,30 @@
-"""Enable JAX's persistent compilation cache (huge win on repeated runs:
-first XLA compile of e.g. batched SVD takes tens of seconds on this host).
+"""Enable JAX's persistent compilation cache.
 
-Import for side effect, or call :func:`enable` explicitly with a dir.
-
-The default cache dir is REPO-LOCAL (``<repo>/.jax_cache``, gitignored):
-containers reset between rounds wipe ``~/.cache`` but the working tree
-is what persists longest, and a wiped cache cost the driver's
-multi-chip dryrun two red rounds of cold 4-vCPU compiles (VERDICT r4
-weak #1/#5).  Override with ``RSLO_TPU_JAX_CACHE``.
+Import for side effect, or call :func:`enable`.  Where
+``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and this module
+sets no directory; otherwise the cache lives in ``<repo>/.jax_cache``
+(gitignored), a fixed path, so that runs from one checkout share it.
 """
 from __future__ import annotations
 
 import os
 
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
+ENV = "JAX_COMPILATION_CACHE_DIR"
+REPO_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), ".jax_cache")
 
 
-def default_dir() -> str:
-    d = os.environ.get("RSLO_TPU_JAX_CACHE")
-    if d:
-        return d
-    if os.access(_REPO_ROOT, os.W_OK):
-        return os.path.join(_REPO_ROOT, ".jax_cache")
-    return os.path.expanduser("~/.cache/rslo_tpu_jax")
+def cache_dir() -> str:
+    """The directory the cache is kept in."""
+    return os.environ.get(ENV) or REPO_DIR
 
 
-def enable(cache_dir: str | None = None) -> None:
+def enable() -> None:
     import jax
 
-    cache_dir = cache_dir or default_dir()
-    os.makedirs(cache_dir, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
+    if not os.environ.get(ENV):
+        os.makedirs(REPO_DIR, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", REPO_DIR)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
     jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
 

@@ -5,7 +5,7 @@ tracing inside shard_map and silently use local statistics outside a
 mesh (single-device eval, unit tests).  A bare try/except NameError
 around lax.psum would also swallow a *misspelled* axis name forever —
 so presence is checked explicitly against the tracer's axis
-environment (VERDICT r1 weak #8).
+environment.
 """
 from __future__ import annotations
 

@@ -2,7 +2,7 @@
 
 The reference logs through torch's SummaryWriter
 (/root/reference/rslo/utils/log_tool.py:60-100); torch is not a
-dependency of this stack (VERDICT r4 weak #7), so scalars/images are
+dependency of this stack, so scalars/images are
 written directly in the on-disk format TensorBoard reads:
 
 * TFRecord framing: ``uint64 len | uint32 masked_crc32c(len) | data |
@@ -20,6 +20,7 @@ written directly in the on-disk format TensorBoard reads:
 from __future__ import annotations
 
 import io
+import logging
 import os
 import socket
 import struct
@@ -103,23 +104,36 @@ def _event(step: int | None = None, wall_time: float | None = None,
     return msg
 
 
-def _png_encode(img) -> tuple[bytes, int, int]:
-    """uint8 HWC -> (png bytes, h, w); PIL if present, else matplotlib."""
+_warned_no_png = False
+
+
+def _png_encode(img) -> tuple[bytes, int, int] | None:
+    """uint8 HWC -> (png bytes, h, w) through PIL, else matplotlib; None
+    (and one log line) when neither is installed."""
+    global _warned_no_png
     import numpy as np
     img = np.asarray(img)
     h, w = img.shape[:2]
+    buf = io.BytesIO()
     try:
         from PIL import Image
-        buf = io.BytesIO()
         Image.fromarray(img).save(buf, format="png")
         return buf.getvalue(), h, w
-    except Exception:
+    except ImportError:
+        pass
+    try:
         import matplotlib
-        matplotlib.use("Agg", force=False)
-        import matplotlib.pyplot as plt
-        buf = io.BytesIO()
-        plt.imsave(buf, img, format="png")
-        return buf.getvalue(), h, w
+    except ImportError:
+        if not _warned_no_png:
+            logging.getLogger(__name__).warning(
+                "neither PIL nor matplotlib is installed: image summaries "
+                "are skipped")
+            _warned_no_png = True
+        return None
+    matplotlib.use("Agg", force=False)
+    import matplotlib.pyplot as plt
+    plt.imsave(buf, img, format="png")
+    return buf.getvalue(), h, w
 
 
 class EventWriter:
@@ -155,7 +169,10 @@ class EventWriter:
             img = (np.clip(img, 0.0, 1.0) * 255).astype(np.uint8)
         if img.ndim == 3 and img.shape[-1] == 1:
             img = img[..., 0]
-        png, h, w = _png_encode(img)
+        encoded = _png_encode(img)
+        if encoded is None:
+            return
+        png, h, w = encoded
         colorspace = 1 if img.ndim == 2 else img.shape[-1]
         image = (_f_varint(1, h) + _f_varint(2, w) +
                  _f_varint(3, colorspace) + _f_bytes(4, png))

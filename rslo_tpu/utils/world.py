@@ -295,8 +295,7 @@ def synth_trajectory(seed: int = 0, n_frames: int = 200,
     — urban-drive magnitude diversity, so translation-norm regression
     cannot collapse to a per-sequence constant.  KITTI itself spans
     0-~23 m/s within sequences; the "walk" proxy's near-constant speed
-    trained a magnitude-compressed translation head (BENCH_NOTES round
-    2).  Curve-pattern yaw rate is scaled by v/speed in varied mode
+    trained a magnitude-compressed translation head.  Curve-pattern yaw rate is scaled by v/speed in varied mode
     (constant curvature, Ackermann-like), so slow segments turn
     slowly in place rather than spinning.  "varied" only applies to
     pattern "curve"; loops keep the closure-timed yaw drive.
@@ -306,7 +305,7 @@ def synth_trajectory(seed: int = 0, n_frames: int = 200,
     halved train yaw magnitudes (0.47-0.58 vs 1.22 deg/frame mean) and
     made |yaw| predictable from speed (corr up to +0.72) — rotation
     SNR collapsed and supervised 3k-step controls could not learn yaw
-    at all (BENCH_NOTES r4).  Decoupling restores v1's rotation signal
+    at all.  Decoupling restores v1's rotation signal
     while keeping the translation-magnitude diversity."""
     rng = np.random.default_rng(seed + 17)
     yaw = rng.uniform(0, 2 * np.pi)

@@ -1,5 +1,5 @@
 #!/bin/bash
-# Scene-generalization eval (VERDICT r2 weak #6): score the aug-trained
+# Scene-generalization eval: score the aug-trained
 # checkpoint against a val sequence rendered from an UNSEEN world
 # (world_seed=1) — same trajectory family, different scene content.
 # Store built by: RSLO_PROXY_ROOT=/tmp/rslo_proxy_gen \

@@ -1,7 +1,7 @@
 """Probe: slot-map gather formulations for the rulebook build.
 
-The L0 submanifold rulebook costs ~16 ms = 1.1M random int32 gathers
-into a 44M-entry (177 MB) table.  Candidates to cut HBM transactions:
+The L0 submanifold rulebook costs 1.1M random int32 gathers into a
+44M-entry (177 MB) table.  Candidates to cut memory transactions:
 
   a. baseline: (V*27,) singleton gathers, int32 table
   b. uint16 table (88 MB): same gathers, half the line traffic

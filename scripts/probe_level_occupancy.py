@@ -1,8 +1,7 @@
-"""On-chip occupancy probe for the sparse level capacities.
+"""Occupancy probe for the sparse level capacities.
 
-The geometry profile (r3g) showed plan build ~82 ms/frame with every
-stage (sorts, slot maps, 27-tap gathers, band wraps) scaling with the
-STATIC level capacities — and L1..L3 are capped far above their real
+Every stage of the plan build (sorts, slot maps, 27-tap gathers, band
+wraps) scales with the STATIC level capacities — and L1..L3 are capped far above their real
 occupancy (a stride-2 downsample of a LiDAR shell reduces sites ~2-3x,
 not 1x).  This measures actual per-level active sites for (a) the dense
 synthetic bench frame and (b) proxy-store frames, to pick honest caps.

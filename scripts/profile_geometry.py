@@ -1,8 +1,7 @@
 """Stage-wise profiler for the sparse geometry build (indice_key analog).
 
-Round-3 context: the honest band-stage profile (profile_band_stages.py)
-showed plan build = 177 ms/frame vs ~40 ms for the convs — so the
-geometry build is THE sparse-path bottleneck.  This splits it into
+When the band-stage profile (profile_band_stages.py) shows the plan
+build dominating the convs, this splits it into
 primitive stages with the chained single-fetch harness (each stage runs
 ``reps`` times device-side inside one jit; one host fetch total) to
 decide which primitive to attack: the dedup sorts, the dense slot-map

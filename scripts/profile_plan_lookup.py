@@ -1,12 +1,11 @@
-"""On-chip A/B of the rulebook lookup methods (KITTI scale, 1 frame):
+"""A/B of the rulebook lookup methods (KITTI scale, 1 frame):
 
-  slot_map — dense id->slot table, one random HBM gather per (row, tap)
+  slot_map — dense id->slot table, one random gather per (row, tap)
   ranked   — windowed compare-reduce ranks (sparse_conv._lookup_ranked)
 
 Times FULL build_geometry and FULL build_band_geometry under both, plus
-the L0 submanifold rulebook alone (the slot-map path's worst line:
-16.4 ms in the r3g geometry profile).  Honest chained single-fetch
-harness.  Also fetches the stray diagnostics once: at deployed shapes
+the L0 submanifold rulebook alone (the slot-map path's largest
+table).  Chained single-fetch harness.  Also fetches the stray diagnostics once: at deployed shapes
 the ranked path must resolve every query in-window or via the 8192-cap
 fallback (exactness guard).
 

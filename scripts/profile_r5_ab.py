@@ -1,5 +1,5 @@
-"""On-chip A/B for the two round-5 sparse levers (stage numbers from
-profile_sparse_stages.py: plan build 82.7 ms, convs 56.1 ms/frame):
+"""A/B for two sparse-path levers (see profile_sparse_stages.py for the
+stage split):
 
   1. plan build: slot_map (default) vs slot_planes (4-entry slice
      gathers, 27->9 transactions per rulebook row)

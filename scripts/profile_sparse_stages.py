@@ -1,10 +1,9 @@
 """Stage breakdown of the RULEBOOK sparse path (the committed default
-engine, bench sparse_fps 5.15): voxelize | plan build (slot_map) |
-convs with plans closed over | plan+convs traced — same honest
-single-fetch methodology as profile_band_stages.py.
+engine): voxelize | plan build (slot_map) | convs with plans closed
+over | plan+convs traced — same single-fetch methodology as
+profile_band_stages.py.
 
-The answer picks the round-5 lever for VERDICT #2 (sparse >= 10 fps):
-plan-build dominated -> incremental/streaming plan reuse; conv
+Plan-build dominated -> incremental/streaming plan reuse; conv
 dominated -> gather layout (bf16 rows, plane-grouped taps) or per-level
 engine dispatch.
 

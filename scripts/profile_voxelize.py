@@ -1,9 +1,9 @@
-"""Voxelizer stage breakdown on TPU (VERDICT r2 #4).
+"""Voxelizer stage breakdown.
 
-The sorted-mean voxelizer is latency-bound (~6 ms/frame at 131k points,
-~0.1 GFLOP): this splits it into its primitive stages to decide whether
-a Pallas radix/bucket pass could beat the XLA sort, and measures the
-round-3 lean formulation (fused (vid,iota) sort, unsorted scatter-add,
+The sorted-mean voxelizer is latency-bound (~0.1 GFLOP at 131k
+points): this splits it into its primitive stages to decide whether a
+radix/bucket kernel could beat the XLA sort, and measures the lean
+formulation (fused (vid,iota) sort, unsorted scatter-add,
 ones-column counts) against its stages.
 
 Stages (each chained device-side, ONE host fetch per timing):

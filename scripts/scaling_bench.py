@@ -1,10 +1,10 @@
 """Data-parallel scaling harness: same per-device batch on 1 vs N mesh
 devices; reports step time and scaling efficiency (ideal = flat).
 
-On the single-TPU dev box this runs on the virtual CPU mesh
-(XLA_FLAGS=--xla_force_host_platform_device_count=N JAX_PLATFORMS via
-config) to validate the psum path and measure collective overhead; on a
-real pod slice it measures true multi-chip efficiency.
+Without several GPUs it runs on the virtual CPU mesh
+(XLA_FLAGS=--xla_force_host_platform_device_count=N, JAX_PLATFORMS=cpu)
+to validate the psum path; on a multi-GPU host it measures the real
+data-parallel efficiency.
 
 Usage: python scripts/scaling_bench.py [n_devices_csv] (default 1,8)
 """
@@ -17,9 +17,6 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax
-
-if jax.default_backend() not in ("tpu",):
-    pass  # whatever platform is configured
 
 import rslo_tpu.utils.jax_cache  # noqa: F401
 

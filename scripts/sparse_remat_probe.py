@@ -1,7 +1,6 @@
 """Does the KITTI-scale sparse (band-engine) self-sup train step fit in
-HBM without remat, and what does it cost?  (The pillar path gained
-592 -> 489 ms from remat=0 in r2.)  Runs a few synthetic steps at each
-setting and prints the steady step time.
+device memory without remat, and what does it cost?  Runs a few
+synthetic steps at each setting and prints the steady step time.
 
 Usage: python -u scripts/sparse_remat_probe.py
 """

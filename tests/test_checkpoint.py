@@ -35,7 +35,7 @@ def test_max_to_keep_prunes(tmp_path):
     mgr = CheckpointManager(str(tmp_path), max_to_keep=2)
     for step in (1, 2, 3):
         mgr.save(step, make_state(float(step)))
-    steps = sorted(mgr.mgr.all_steps())
+    steps = sorted(mgr.all_steps())
     assert steps == [2, 3]
     r = mgr.restore(make_state(0.0), step=3)
     np.testing.assert_allclose(np.asarray(r.params["w"]), 3.0)
@@ -49,7 +49,7 @@ def test_preserve_survives_pruning(tmp_path):
     mgr.preserve(1)
     for step in (2, 3):
         mgr.save(step, make_state(float(step)))
-    assert 1 not in (mgr.mgr.all_steps() or [])
+    assert 1 not in mgr.all_steps()
     r = mgr.restore(make_state(0.0), step=1)
     np.testing.assert_allclose(np.asarray(r.params["w"]), 1.0)
     # preserving a newer best replaces the old one
@@ -59,8 +59,41 @@ def test_preserve_survives_pruning(tmp_path):
     np.testing.assert_allclose(np.asarray(r3.params["w"]), 3.0)
 
 
+def test_restore_raw_and_index(tmp_path):
+    """Template-free restore gives nested dicts keyed by tree path; the
+    json index lists the kept steps and no temporary directory stays."""
+    import json
+    mgr = CheckpointManager(str(tmp_path / "run" / "ckpt"), max_to_keep=2)
+    for step in (5, 6, 7):
+        mgr.save(step, make_state(float(step)))
+    raw = CheckpointManager.restore_raw_from(str(tmp_path / "run"))
+    np.testing.assert_allclose(raw["params"]["w"], 7.0)
+    np.testing.assert_allclose(raw["alphas"]["rot"], -2.5)
+    assert int(raw["step"]) == 0
+    index = json.loads((tmp_path / "run" / "ckpt" /
+                        "checkpoints.json").read_text())
+    assert index["steps"] == [6, 7]
+    assert not [p for p in (tmp_path / "run" / "ckpt").iterdir()
+                if p.name.startswith(".")]
+    with pytest.raises(FileNotFoundError):
+        CheckpointManager.restore_raw_from(str(tmp_path / "empty"))
+
+
+def test_bfloat16_leaves_roundtrip(tmp_path):
+    """Leaves of a dtype numpy cannot store natively come back exact."""
+    mgr = CheckpointManager(str(tmp_path))
+    tree = {"a": jnp.arange(6, dtype=jnp.bfloat16).reshape(2, 3) / 3,
+            "b": (jnp.int32(4), jnp.ones((2,), jnp.float32))}
+    mgr.save(1, tree)
+    back = mgr.restore(tree)
+    assert back["a"].dtype == jnp.bfloat16
+    np.testing.assert_array_equal(np.asarray(back["a"], np.float32),
+                                  np.asarray(tree["a"], np.float32))
+    assert int(back["b"][0]) == 4
+
+
 def test_best_checkpoint_nan_proof(tmp_path):
-    """NaN metrics must never pin best_ckpt.json (VERDICT r2 weak #5):
+    """NaN metrics must never pin best_ckpt.json:
     average_errors deliberately returns NaN for too-short trajectories
     (eval/kitti_odometry.py:81-90) and NaN < x is always False."""
     from rslo_tpu.cli import update_best_checkpoint
@@ -126,6 +159,6 @@ def test_periodic_checkpoint_interval(tmp_path):
               str(mdir), "--synthetic", "--supervised", "--steps", "9"])
 
     mgr = CheckpointManager(str(mdir / "ckpt"), max_to_keep=8)
-    steps = sorted(mgr.mgr.all_steps())
+    steps = sorted(mgr.all_steps())
     # periodic saves at 4 and 8, final save at 9
     assert 4 in steps and 8 in steps and 9 in steps, steps

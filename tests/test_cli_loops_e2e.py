@@ -1,4 +1,4 @@
-"""CLI-level loop-closure eval (VERDICT r1 next #7).
+"""CLI-level loop-closure eval.
 
 Renders a small looped raycast-world sequence, builds the production
 HDF5 store with ``create_hdf5``, and runs ``evaluate --refine_loops``

@@ -145,7 +145,7 @@ def test_pose_interp_aug_consistency(rng):
     """Slerp pose augmentation: warped points must stay consistent with
     the regenerated cyclic-VO targets — for clouds observing the same
     world points X from poses T_i, after augmentation
-    vo'(i,j) ∘ p'_j == p'_i exactly (VERDICT r1 next #5)."""
+    vo'(i,j) ∘ p'_j == p'_i exactly."""
     from rslo_tpu.data.augment import pose_interp_aug
     from rslo_tpu.data.dataset import generate_cyc_vo
     from rslo_tpu.geometry.transforms import (np_calc_vo, np_compose_pose,

@@ -72,7 +72,7 @@ def test_run_eval_refined_with_ba(setup):
 
 
 def test_run_eval_refined_with_cov_ba(setup):
-    """Covariance-weighted BA path (VERDICT r1 next #4): the eval step
+    """Covariance-weighted BA path: the eval step
     returns the network's voxel points + cov params and run_eval_refined
     whitens the BA observations with the full 3x3 information blocks."""
     cfg, net, mesh, variables, eval_step, ds3 = setup

@@ -1,5 +1,4 @@
-"""MetricLogger + native TensorBoard event writer (no torch import —
-VERDICT r4 weak #7)."""
+"""MetricLogger + native TensorBoard event writer (no torch import)."""
 import struct
 import sys
 

@@ -132,7 +132,7 @@ def test_calibration_degenerate_duplicates_fallback(rng):
 
 
 def test_calibrated_info_downweights_noisy_long_edges(rng):
-    """VERDICT r4 weak #3 regression: when 2-step edges carry much
+    """Regression: when 2-step edges carry much
     noisier rotation, cycle-closure calibration must (a) assign them
     lower rotation information than 1-step edges and (b) stop the
     refinement from degrading per-frame rotation vs uniform info."""

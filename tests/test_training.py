@@ -74,7 +74,7 @@ def test_selfsup_training_reduces_pose_error():
     """Self-supervised training must REDUCE the diagnostic GT pose
     errors (objective aux t_err_gt / q_err_deg) — the cheap CPU guard
     against round 2's failure mode, where frame_t_err WORSENED over a
-    10k-step self-sup run while the loss kept falling (VERDICT r2 #6).
+    10k-step self-sup run while the loss kept falling.
     Uses the production two-phase schedule: identity-R warmup steps,
     then the ICP pseudo-target phase."""
     import sys

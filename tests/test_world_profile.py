@@ -1,8 +1,7 @@
 """Speed profiles of the raycast-proxy trajectory generator.
 
 The "varied" profile exists because a near-constant per-sequence speed
-trains a magnitude-compressed translation head (BENCH_NOTES round 2,
-diag_pairtypes); KITTI itself spans 0-~23 m/s within a sequence.
+trains a magnitude-compressed translation head; KITTI itself spans 0-~23 m/s within a sequence.
 """
 import numpy as np
 

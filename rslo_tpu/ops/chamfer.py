@@ -122,21 +122,18 @@ def _pad_to(x: jax.Array, n: int, value) -> jax.Array:
     return jnp.pad(x, widths, constant_values=value)
 
 
-@functools.partial(jax.jit, static_argnames=(
-    "src_block", "tgt_block", "num_warps", "num_stages", "interpret"))
+@functools.partial(jax.jit, static_argnames=("interpret",))
 def nn_search_pallas(src: jax.Array, src_mask: jax.Array, tgt: jax.Array,
-                     tgt_mask: jax.Array, *, src_block: int = SRC_BLOCK,
-                     tgt_block: int = TGT_BLOCK, num_warps: int = NUM_WARPS,
-                     num_stages: int = NUM_STAGES, interpret: bool = False):
+                     tgt_mask: jax.Array, *, interpret: bool = False):
     """Pallas (Triton route) version of :func:`nn_search`, same contract.
 
-    Any N and M: the wrapper pads sources to a multiple of ``src_block``
-    and targets to a multiple of ``tgt_block`` (padded targets carry the
+    Any N and M: the wrapper pads sources to a multiple of ``SRC_BLOCK``
+    and targets to a multiple of ``TGT_BLOCK`` (padded targets carry the
     BIG penalty, padded sources are cut off).  Targets travel as one
     (4, Mp) array whose rows are x, y, z and a mask penalty (0 valid /
     BIG invalid), so masking is one add and needs no integer operand.
     One program per source block; an in-kernel loop over target tiles
-    computes the (src_block, tgt_block) exact-difference distances and
+    computes the (SRC_BLOCK, TGT_BLOCK) exact-difference distances and
     folds them elementwise into a running min per tile column; one
     reduction at the end takes the row minimum and its first index.
     """
@@ -144,8 +141,8 @@ def nn_search_pallas(src: jax.Array, src_mask: jax.Array, tgt: jax.Array,
     from jax.experimental.pallas import triton as plgpu
 
     N, M = src.shape[0], tgt.shape[0]
-    Np = -(-N // src_block) * src_block
-    Mp = -(-M // tgt_block) * tgt_block
+    Np = -(-N // SRC_BLOCK) * SRC_BLOCK
+    Mp = -(-M // TGT_BLOCK) * TGT_BLOCK
     src = jax.lax.stop_gradient(src.astype(jnp.float32))
     tgt = jax.lax.stop_gradient(tgt.astype(jnp.float32))
     srcT = _pad_to(jnp.concatenate(
@@ -153,7 +150,7 @@ def nn_search_pallas(src: jax.Array, src_mask: jax.Array, tgt: jax.Array,
     tgtT = _pad_to(jnp.concatenate(
         [tgt.T, jnp.where(tgt_mask, 0.0, BIG).astype(jnp.float32)[None]],
         axis=0), Mp, BIG)                                   # (4, Mp)
-    n_tiles = Mp // tgt_block
+    n_tiles = Mp // TGT_BLOCK
 
     def kernel(s_ref, t_ref, d_ref, i_ref):
         sx = s_ref[0, :][:, None]
@@ -164,8 +161,8 @@ def nn_search_pallas(src: jax.Array, src_mask: jax.Array, tgt: jax.Array,
         # elementwise; the one cross-column reduction comes after it
         def body(j, carry):
             best_d, best_j = carry
-            cols = pl.ds(pl.multiple_of(j * tgt_block, tgt_block),
-                         tgt_block)
+            cols = pl.ds(pl.multiple_of(j * TGT_BLOCK, TGT_BLOCK),
+                         TGT_BLOCK)
             dx = sx - t_ref[0, cols][None, :]
             dy = sy - t_ref[1, cols][None, :]
             dz = sz - t_ref[2, cols][None, :]
@@ -173,35 +170,35 @@ def nn_search_pallas(src: jax.Array, src_mask: jax.Array, tgt: jax.Array,
             upd = d < best_d          # strict: the earliest tile wins
             return jnp.where(upd, d, best_d), jnp.where(upd, j, best_j)
 
-        shape = (src_block, tgt_block)
+        shape = (SRC_BLOCK, TGT_BLOCK)
         best_d, best_j = jax.lax.fori_loop(
             0, n_tiles, body, (jnp.full(shape, BIG, jnp.float32),
                                jnp.zeros(shape, jnp.int32)))
         col = jax.lax.broadcasted_iota(jnp.int32, shape, 1)
         td = jnp.min(best_d, axis=1)
         # first index among the ties of the row minimum
-        gidx = jnp.where(best_d == td[:, None], best_j * tgt_block + col,
-                         n_tiles * tgt_block)
+        gidx = jnp.where(best_d == td[:, None], best_j * TGT_BLOCK + col,
+                         n_tiles * TGT_BLOCK)
         d_ref[:] = td
         i_ref[:] = jnp.where(td < BIG, jnp.min(gidx, axis=1), 0)
 
     dist, idx = pl.pallas_call(
         kernel,
-        grid=(Np // src_block,),
+        grid=(Np // SRC_BLOCK,),
         in_specs=[
-            pl.BlockSpec((4, src_block), lambda i: (0, i)),
+            pl.BlockSpec((4, SRC_BLOCK), lambda i: (0, i)),
             pl.BlockSpec((4, Mp), lambda i: (0, 0)),
         ],
         out_specs=[
-            pl.BlockSpec((src_block,), lambda i: (i,)),
-            pl.BlockSpec((src_block,), lambda i: (i,)),
+            pl.BlockSpec((SRC_BLOCK,), lambda i: (i,)),
+            pl.BlockSpec((SRC_BLOCK,), lambda i: (i,)),
         ],
         out_shape=[
             jax.ShapeDtypeStruct((Np,), jnp.float32),
             jax.ShapeDtypeStruct((Np,), jnp.int32),
         ],
-        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
-                                             num_stages=num_stages),
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=NUM_STAGES),
         interpret=interpret,
         name="chamfer_nn",
     )(srcT, tgtT)

@@ -30,8 +30,9 @@ def test_nn_search_matches_oracle(rng):
 
 
 def _case(rng, name):
-    """(src, src_mask, tgt, tgt_mask) for one kernel test case."""
-    N, M = (256, 256) if name == "aligned" else (203, 77)
+    """(src, src_mask, tgt, tgt_mask) for one kernel test case.  Every
+    case spans several source blocks and target tiles of the kernel."""
+    N, M = (256, 256) if name == "aligned" else (203, 157)
     src = rng.normal(size=(N, 3)).astype(np.float32) * 5
     tgt = rng.normal(size=(M, 3)).astype(np.float32) * 5
     sm = np.ones(N, bool)
@@ -44,7 +45,7 @@ def _case(rng, name):
     elif name == "duplicates":
         # every target appears three times (in different tiles), and
         # some sources sit exactly on a target: ties -> first index
-        tgt = np.concatenate([tgt[:25]] * 3 + [tgt[:2]])
+        tgt = np.concatenate([tgt[:60]] * 3 + [tgt[:2]])
         tm = np.ones(len(tgt), bool)
         src[:20] = tgt[5:25]
     return src, sm, tgt, tm
@@ -58,8 +59,8 @@ def test_pallas_kernel_interpret_matches_scan(rng, name):
     src, sm, tgt, tm = _case(rng, name)
     args = [jnp.asarray(a) for a in (src, sm, tgt, tm)]
     d1, i1 = nn_search(*args, tile=64)
-    d2, i2 = nn_search_pallas(*args, src_block=32, tgt_block=16,
-                              interpret=True)
+    assert len(tgt) > 2 * chamfer.TGT_BLOCK and len(src) > chamfer.SRC_BLOCK
+    d2, i2 = nn_search_pallas(*args, interpret=True)
     d2, i2 = np.asarray(d2), np.asarray(i2)
     np.testing.assert_array_equal(i2, np.asarray(i1))
     if not tm.any():
